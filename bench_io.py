@@ -7,7 +7,7 @@ protobuf is -78% time / -50% size vs txt).  Here all three of our formats are
 timed on the same synthetic map, and the same sanity statistic is printed
 (max keyframe translation norm, TxtVsProto.cc:16-27).
 
-Runs on CPU — this is host-side I/O, no TPU involved.
+Runs on CPU — this is host-side I/O, no accelerator involved.
 """
 
 import json

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Microbenchmarks: batched-vs-unbatched formulations of frontend stages."""
 import os, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import jax, jax.numpy as jnp, numpy as np
 from functools import partial
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.ops import fast
 from orb_slam2_ros2_tpu.ops.pyramid import build_pyramid, resize_bilinear_matmul, level_shapes

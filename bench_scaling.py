@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """Sharded global-BA scaling probe on the virtual CPU mesh.
 
-Multi-chip TPU hardware is unavailable in this environment (SURVEY §5.8;
-BASELINE.md's 2-host metric), so this measures the honest stand-in: wall time
+This runs on virtual CPU devices (SURVEY §5.8), so it measures a stand-in
+for cards: wall time
 of one full global-BA solve at a KITTI-00-scale problem (1024 cameras,
 2·10⁵ points) across 1/2/4/8 shards of an
-``xla_force_host_platform_device_count`` CPU mesh.  CPU collectives cost more
-than ICI, so the reported efficiency is a LOWER bound on TPU scaling.
+``xla_force_host_platform_device_count`` CPU mesh.  The numbers describe
+the CPU mesh only; ``chip_smoke.py --four-cards`` runs the sharded BA on
+four cards.
 
 Run: python bench_scaling.py   (prints one JSON line)
 """
@@ -20,7 +21,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 ).strip()
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 import jax.numpy as jnp
@@ -98,7 +99,7 @@ def main():
         "problem": "C=1024 P=200k O=6",
         "seconds": {str(n): round(t, 3) for n, t in results.items()},
         "efficiency_vs_1": {str(n): eff[n] for n in eff},
-        "note": "virtual CPU mesh; lower bound on TPU ICI scaling",
+        "note": "virtual CPU mesh; says nothing about cards",
     }))
 
 

@@ -2,7 +2,7 @@
 //
 // Role: the reference's example drivers decode images on the caller's thread
 // with OpenCV (reference: example/Stereo/KittiStereo.cc:28-37).  Feeding a
-// TPU tracker at >100 fps needs decode off the critical path: this library
+// tracker at >100 fps needs decode off the critical path: this library
 // runs a small worker pool that decodes frames ahead of the consumer into a
 // bounded in-order ring, exposed to Python via a minimal ctypes C API.
 //

@@ -5,7 +5,7 @@ shared-word counts, covisibility-group accumulation and best-of-group
 selection (reference: src/KeyFrameDB.cc — addKeyFrame :8-36, findRelocKfs
 :39-173, findLoopCloseKfs :181-242).
 
-TPU redesign: each keyframe stores its top-``S`` words by tf-idf weight as a
+Redesign: each keyframe stores its top-``S`` words by tf-idf weight as a
 fixed-shape (ids, weights) pair — memory is O(K·S) instead of the dense
 O(K·W) rows of round 1, which made a DBoW3-scale vocabulary (10⁶ words)
 impossible (4 GB).  A query scatters its own sparse vector into a transient
@@ -15,8 +15,8 @@ sparse dot product of L2-normalized tf-idf vectors (cosine score; documented
 deviation from DBoW3's L1 score, same retrieval ordering in practice).
 
 The reference's featvec/levelsUp node grouping (Frame.h:224-231) exists to
-prune C++ descriptor matching; our matching is a dense hamming matrix on the
-MXU, so no counterpart is needed (documented deviation).
+prune C++ descriptor matching; our matching is a dense hamming matrix (one
+matmul), so no counterpart is needed (documented deviation).
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def rebuild(vocab: Vocabulary, state: MapState, max_words: int = 1024,
     one big vmap): the tree-descent transform materializes a
     [rows, N, k, 256] f32 sign tensor per level, which at full keyframe
     capacity × 2048 descriptors × a 10⁵-word vocabulary is ~20 GB — a vmap
-    over all slots OOMed a 16 GB TPU on ``SLAM.load()`` (r5).  Chunked, the
+    over all slots ran out of device memory on ``SLAM.load()`` (r5).  Chunked, the
     peak is ~chunk/K of that with identical results."""
     def one(desc, valid, kf_ok):
         words = transform(vocab, desc, valid & kf_ok)

@@ -132,7 +132,7 @@ def bow_vector(vocab: Vocabulary, word_ids: jnp.ndarray) -> jnp.ndarray:
     """Sparse word histogram → dense tf-idf L2-normalized vector f32[n_words].
 
     Deviation from DBoW3 (documented): scoring uses the cosine of tf-idf
-    vectors instead of DBoW3's L1 score — same retrieval behaviour, one MXU
+    vectors instead of DBoW3's L1 score — same retrieval behaviour, one
     matmul per query against the whole keyframe database.
     """
     W = vocab.n_words

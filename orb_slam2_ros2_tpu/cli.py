@@ -15,24 +15,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 
 import numpy as np
-
-
-def _setup_compile_cache():
-    """Persistent XLA compilation cache: the full pipeline costs minutes to
-    compile cold (§5.1); warm runs skip straight to execution.  Same directory
-    bench.py uses, overridable via JAX_COMPILATION_CACHE_DIR."""
-    import jax
-
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                           os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def _build_cfg(args, width, height):
@@ -159,7 +145,9 @@ def _train_vocab(args):
 
 
 def main(argv=None):
-    _setup_compile_cache()
+    from .utils import setup_compile_cache
+
+    setup_compile_cache()
     p = argparse.ArgumentParser(prog="orb_slam2_ros2_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name in ("kitti", "tum", "synth"):

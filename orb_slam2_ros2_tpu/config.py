@@ -1,4 +1,4 @@
-"""Typed configuration tree for the TPU-native SLAM engine.
+"""Typed configuration tree for the SLAM engine.
 
 The reference loads a flat OpenCV-YAML file into a ``Config`` struct plus
 process-global camera statics (reference: src/ORB_SLAM2/src/System.cc:18-79,
@@ -8,7 +8,7 @@ SURVEY.md §5.6) — live in one frozen dataclass tree so that jitted programs c
 treat them as static compile-time parameters.
 
 All *capacities* (max keypoints, max keyframes, max map points, ...) are new:
-the TPU design uses fixed-capacity padded arrays everywhere, because XLA
+this design uses fixed-capacity padded arrays everywhere, because XLA
 requires static shapes.  The reference's dynamic STL containers have no
 capacity limits; ours are documented defaults sized for KITTI-00-class runs.
 """
@@ -18,8 +18,6 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
-
-import yaml
 
 
 @dataclass(frozen=True)
@@ -79,7 +77,7 @@ class ORBConfig:
     # stay inside the keypoint's own pyramid level
     edge_border: int = 23
     patch_radius: int = 15  # grey-centroid orientation radius (ORBExtractor.cc:518)
-    # TPU-native replacement for the reference quadtree (ORBExtractor.cc:19-192):
+    # array-native replacement for the reference quadtree (ORBExtractor.cc:19-192):
     # per-level spatial cells with top-k-by-response selection.  Cell size in px
     # at level 0 (reference FAST cells are 30×30, ORBExtractor.cc:331).
     cell_size: int = 32
@@ -141,8 +139,7 @@ class TrackingConfig:
     # dispatches the current frame's program speculatively and resolves the
     # PREVIOUS frame's result while the device works, so the per-frame
     # device→host fetch and all host decision logic overlap the next frame's
-    # device execution (on a tunnelled backend this hides the full network
-    # round-trip).  ``track()`` then returns the previous frame's pose — one
+    # device execution.  ``track()`` then returns the previous frame's pose — one
     # frame of latency, the same lag the reference's tracking→mapping thread
     # handoff has (LocalMapping.cc:721-726).  Weak/LOST frames are detected
     # one frame late; the speculative successor is re-dispatched from the
@@ -216,8 +213,7 @@ class MappingConfig:
     # mapping-tail strides (r5 perf): run the local BA only on every
     # ``ba_stride``-th keyframe and the redundancy KF-cull only on every
     # ``kf_cull_stride``-th (offset so they alternate at 2/2) — the two
-    # dominate the deferred tail (~35 ms BA + ~14 ms cull of ~43 ms on TPU,
-    # profile_kf r5).  The reference's LocalMapping makes the same trade
+    # dominate the deferred tail.  The reference's LocalMapping makes the same trade
     # implicitly: under keyframe load its BA aborts (setAbortBA) and culling
     # waits for an idle queue (LocalMapping.cc:96-109).  1/1 = every tail.
     ba_stride: int = 1
@@ -267,12 +263,11 @@ class BAConfig:
     # the reference runs 10 plain-GN iterations per round; our LM with step
     # acceptance converges in ~3-5, so 4 buys the same accuracy at ~2/5 the
     # cost (r4: measured ATE flat 6→4 on the e2e worlds; each LM iteration
-    # is a latency-bound chain of small ops — 36 of them were ~4.4 ms of the
-    # 14 ms frame)
+    # is a latency-bound chain of small ops)
     pose_iters_per_round: int = 4
     # damped-GN iterations per local-BA phase (reference: 5 + χ² gate + 10,
     # Optimizer.cc:225-442; our LM with step acceptance needs fewer — ATE
-    # measured flat from (3,5) down to (2,3) while BA time drops ~40%)
+    # measured flat from (3,5) down to (2,3))
     local_ba_phase_iters: Tuple[int, int] = (2, 3)
     # local-BA window: the reference frees the full 1-ring (unbounded);
     # bounded here for static shapes.  12 free + 24 fixed + 4096 landmarks
@@ -290,7 +285,7 @@ class BAConfig:
 
 @dataclass(frozen=True)
 class MapConfig:
-    """Fixed capacities of the device-resident SoA map stores (TPU-new)."""
+    """Fixed capacities of the device-resident SoA map stores (new here)."""
 
     max_keyframes: int = 1024
     max_mappoints: int = 1 << 18   # 262144
@@ -325,7 +320,8 @@ class BoWConfig:
 
 @dataclass(frozen=True)
 class DistConfig:
-    """Multi-chip sharding (TPU-new; reference has no distributed backend)."""
+    """Multi-device sharding (new here; the reference has no distributed
+    backend)."""
 
     n_devices: int = 1
     mesh_axis: str = "ba"  # landmark-block sharding axis for distributed BA
@@ -364,6 +360,8 @@ class SLAMConfig:
         existing config files.
         """
         import os as _os
+
+        import yaml  # only this loader needs PyYAML
 
         if not _os.path.exists(path):
             from .errors import FileNotOpenError

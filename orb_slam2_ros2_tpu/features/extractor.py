@@ -4,7 +4,7 @@ Replaces the reference's ``ORBExtractor::extract`` + two extractor threads +
 ``ORBMatcher::searchByStereo`` per frame (reference: src/ORBExtractor.cc:
 499-508, src/Frame.cc:85-111) with ONE jitted program per stereo pair:
 both images run through the SAME batched ops ([B, H, W] pyramids, FAST maps,
-one shared patch-DMA call over a stacked canvas), and the stereo matcher
+one shared patch gather over a stacked canvas), and the stereo matcher
 reuses the extracted keypoint patches for SAD refinement — no second gather
 pass over the pyramid.
 """
@@ -22,7 +22,7 @@ from ..config import SLAMConfig
 from ..geometry import camera as cam_mod
 from ..ops import brief, fast, stereo
 from ..ops.canvas import canvas_layout, padded_canvas_shape
-from ..ops.pallas_patches import extract_patches_48x64
+from ..ops.patches import extract_patches
 from ..ops.pyramid import build_pyramid
 from .frame import FrameFeatures, StereoFrame
 
@@ -37,6 +37,36 @@ def level_capacities(max_kp: int, n_levels: int, scale_factor: float) -> List[in
     caps = [max(8, int(c // 8 * 8)) for c in raw]
     caps[0] += max_kp - sum(caps)
     return caps
+
+
+def pyramid_canvas(levels, h: int, w: int, scale_factor: float) -> jnp.ndarray:
+    """[B, Hl, Wl] pyramid levels → one tall [B·rows_p, cols_p] canvas, image
+    b's pyramid starting at row b·rows_p (``ops.canvas`` layout)."""
+    n_levels = len(levels)
+    B = levels[0].shape[0]
+    row_off_np, _, _ = canvas_layout(h, w, n_levels, scale_factor)
+    rows_p, cols_p = padded_canvas_shape(h, w, n_levels, scale_factor)
+    canvas = jnp.zeros((B * rows_p, cols_p), levels[0].dtype)
+    for b in range(B):
+        off = b * rows_p
+        for l in range(n_levels):
+            canvas = jax.lax.dynamic_update_slice(
+                canvas, levels[l][b], (off + int(row_off_np[l]), 0)
+            )
+    return canvas
+
+
+def keypoint_centers(uv_raw, octave, h: int, w: int, n_levels: int,
+                     scale_factor: float) -> jnp.ndarray:
+    """[B, N] keypoints → i32[B·N, 2] (y, x) addresses on the
+    ``pyramid_canvas`` of the same B images."""
+    B = uv_raw.shape[0]
+    row_off_np, _, _ = canvas_layout(h, w, n_levels, scale_factor)
+    rows_p, _ = padded_canvas_shape(h, w, n_levels, scale_factor)
+    centers = stereo.canvas_centers(uv_raw, octave, scale_factor, jnp.asarray(row_off_np))
+    centers = centers + (jnp.arange(B, dtype=jnp.int32)[:, None, None]
+                         * jnp.asarray([rows_p, 0], jnp.int32)[None, None, :])
+    return centers.reshape(-1, 2)
 
 
 def extract_features_batch(
@@ -59,23 +89,12 @@ def extract_features_batch(
     patches f32[B, N, 48, 64]).
 
     Every stage is batched over B: the pyramid resizes are shared matmuls,
-    FAST scores compute on [B, Hl, Wl] stacks, and ONE patch-DMA kernel call
-    serves all B·N keypoints from a row-stacked canvas.
+    FAST scores compute on [B, Hl, Wl] stacks, and ONE patch gather serves
+    all B·N keypoints from a row-stacked canvas.
     """
     B = imgs.shape[0]
     levels = build_pyramid(imgs, n_levels, scale_factor)  # tuple of [B, Hl, Wl]
-    row_off_np, _, _ = canvas_layout(h, w, n_levels, scale_factor)
-    rows_p, cols_p = padded_canvas_shape(h, w, n_levels, scale_factor)
-    row_off = jnp.asarray(row_off_np)
-
-    # one tall canvas holding every image's pyramid (image b at row b·rows_p)
-    canvas = jnp.zeros((B * rows_p, cols_p), levels[0].dtype)
-    for b in range(B):
-        off = b * rows_p
-        for l in range(n_levels):
-            canvas = jax.lax.dynamic_update_slice(
-                canvas, levels[l][b], (off + int(row_off_np[l]), 0)
-            )
+    canvas = pyramid_canvas(levels, h, w, scale_factor)
 
     select = jax.vmap(
         partial(
@@ -86,7 +105,7 @@ def extract_features_batch(
     )
     uts, resps, valids, octs = [], [], [], []
     for l in range(n_levels):
-        score = fast.fast_score_nms_dispatch(levels[l], min_th)  # [B, Hl, Wl]
+        score = fast.nms3(fast.fast_score(levels[l], min_th))  # [B, Hl, Wl]
         uv_l, resp_l, valid_l = select(score, caps[l])             # [B, cap, ...]
         s = scale_factor**l
         uts.append(uv_l * s)  # to level-0 coords
@@ -100,11 +119,9 @@ def extract_features_batch(
     octave = jnp.concatenate(octs, axis=1)
     N = uv_raw.shape[1]
 
-    # ONE 48×64 patch DMA serves orientation, blurring and BRIEF sampling
-    centers = stereo.canvas_centers(uv_raw, octave, scale_factor, row_off)
-    centers = centers + (jnp.arange(B, dtype=jnp.int32)[:, None, None]
-                         * jnp.asarray([rows_p, 0], jnp.int32)[None, None, :])
-    patches = extract_patches_48x64(canvas, centers.reshape(B * N, 2))
+    # ONE 48×64 patch gather serves orientation, blurring and BRIEF sampling
+    centers = keypoint_centers(uv_raw, octave, h, w, n_levels, scale_factor)
+    patches = extract_patches(canvas, centers)
     angles_rad = brief.orientations(patches)
     # describe() folds the pre-compare Gaussian blur into its sampling matrix
     desc = brief.describe(patches, angles_rad, pair_matrix=brief_pair_matrix).reshape(B, N, 8)

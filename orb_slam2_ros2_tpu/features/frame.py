@@ -2,12 +2,12 @@
 
 The reference's ``VirtualFrame``/``Frame`` is a mutex-guarded class holding
 STL vectors of keypoints, descriptors, stereo depths and map-point pointers
-(reference: include/ORB_SLAM2/Frame.h:22-331, src/Frame.cc).  The TPU data
-model is a padded SoA pytree with a validity mask — no pointers, no locks,
+(reference: include/ORB_SLAM2/Frame.h:22-331, src/Frame.cc).  The data
+model here is a padded SoA pytree with a validity mask — no pointers, no locks,
 statically shaped for jit.  The reference's 48×64 grid index
 (Frame.cc:52-69) has no equivalent here: area searches are dense masked
-distance checks over all keypoint slots, which is faster on TPU than any
-bucketed gather at these sizes (N ≤ 2048).
+distance checks over all keypoint slots, which at these sizes (N ≤ 2048) is
+one fused array op where a bucketed gather would be many small ones.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ def quat_to_rot(q: jnp.ndarray) -> jnp.ndarray:
 def _max_eigvec_4x4(N: jnp.ndarray, squarings: int = 9) -> jnp.ndarray:
     """Maximal eigenvector of symmetric [..., 4, 4] matrices via shifted
     matrix squaring — ``jnp.linalg.eigh`` on batched 4×4s lowers to an
-    iterative kernel costing milliseconds per call on TPU.
+    iterative solver; squaring is a fixed chain of small matmuls.
 
     Shift by the Frobenius norm so B = N + cI is PSD with the same
     eigenvector order, then square B ``squarings`` times (normalizing to the

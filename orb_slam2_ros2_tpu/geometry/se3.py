@@ -147,7 +147,7 @@ def normalize(T: jnp.ndarray) -> jnp.ndarray:
     """Re-orthonormalize the rotation block (drift control).
 
     Quaternion round-trip instead of an SVD: ``jnp.linalg.svd`` on 3×3 lowers
-    to an iterative routine costing ~ms on TPU; the closed-form
+    to an iterative routine; the closed-form
     rot→quat→normalize→rot projection is a handful of vector ops and is
     exact for rotations already near SO(3).
     """

@@ -32,8 +32,8 @@ def dlt_rows(cam: CameraParams, Tcw: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarra
 
 def _sym3_eigenvalues(M: jnp.ndarray):
     """Closed-form (Cardano) eigenvalues of symmetric [..., 3, 3] matrices,
-    returned ascending.  Branch-free, ~30 VPU ops — batched 3×3/4×4
-    decompositions via jnp.linalg cost milliseconds on TPU."""
+    returned ascending.  Branch-free, ~30 elementwise ops — batched 3×3/4×4
+    decompositions via jnp.linalg lower to iterative solvers."""
     q = jnp.trace(M, axis1=-2, axis2=-1) / 3.0
     Mq = M - q[..., None, None] * jnp.eye(3, dtype=M.dtype)
     p2 = jnp.sum(Mq * Mq, axis=(-2, -1)) / 6.0
@@ -57,9 +57,9 @@ def triangulate_pairs(
 ):
     """DLT-triangulate matched observations.
 
-    Returns (points_w [..., 3], ok [...]).  TPU formulation: instead of the
+    Returns (points_w [..., 3], ok [...]).  Formulation: instead of the
     reference's 4×4 SVD null vector (LocalMapping.cc:329-331 — batched small
-    SVDs are an iterative, milliseconds-per-call lowering on TPU), solve the
+    SVDs lower to an iterative solver), solve the
     inhomogeneous system ``A[:, :3] X = −A[:, 3]`` via 3×3 normal equations
     with a closed-form adjugate inverse.  The two formulations minimize the
     same algebraic error; homogeneous solutions with w≈0 (points at

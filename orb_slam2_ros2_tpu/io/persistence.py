@@ -3,7 +3,7 @@
 The reference serializes its pointer-web map to Protobuf (−78% time / −50%
 size vs text streams per its README) with a relink pass after load
 (reference: src/Map.cc:200-319 save/load, :322-381 processConnection;
-proto/Keyframe.proto, proto/MapPoint.proto).  The TPU map is already flat
+proto/Keyframe.proto, proto/MapPoint.proto).  The map is already flat
 arrays, so the checkpoint is a compressed npz of the SoA stores — no relink
 pass is needed because the graph IS arrays (observation index, covisibility,
 spanning tree are saved verbatim).  The keyframe database is rebuilt from

@@ -1,4 +1,4 @@
-"""Synthetic textured-box world renderer (TPU-new; no reference counterpart).
+"""Synthetic textured-box world renderer (new; no reference counterpart).
 
 The environment ships no KITTI/TUM data, so tests and benchmarks render a
 deterministic synthetic stereo sequence with exact ground-truth poses and

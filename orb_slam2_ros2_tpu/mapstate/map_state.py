@@ -3,7 +3,7 @@
 The reference's map is a pointer web — KeyFrame/MapPoint objects with
 observation maps, covisibility dictionaries, spanning-tree pointers and ~20
 mutexes (reference: src/KeyFrame.cc, src/MapPoint.cc, src/Map.cc; SURVEY.md
-§5.2).  The TPU design replaces all of it with padded arrays updated
+§5.2).  This design replaces all of it with padded arrays updated
 functionally inside jit:
 
 - KeyFrame store: poses + full per-KF feature tables ``[K, N]``;

@@ -3,11 +3,11 @@
 The reference walks grid buckets per query and scans candidate lists with
 best/second-best bookkeeping (reference: src/ORBMatcher.cc — searchByProjection
 ×2 at :265-347/:561-612, getBestMatch :967-990, verifyAngle :1013-1051,
-VirtualFrame::findFeaturesInArea src/Frame.cc:286-311).  The TPU design drops
-the 48×64 grid entirely: every search is a full Q×T hamming matrix on the MXU
-with a geometric candidate mask, one masked argmin, and vectorized ratio /
-rotation-histogram post-filters.  At Q, T ≤ 2048 the dense matrix is cheaper
-than any gather-based bucketing on this hardware.
+VirtualFrame::findFeaturesInArea src/Frame.cc:286-311).  This design drops
+the 48×64 grid entirely: every search is a full Q×T hamming matrix (one
+matmul) with a geometric candidate mask, one masked argmin, and vectorized
+ratio / rotation-histogram post-filters.  At Q, T ≤ 2048 the dense matrix
+replaces gather-based bucketing.
 
 Conventions: invalid entries never match (masks), −1 indices mean "no match".
 """
@@ -52,8 +52,7 @@ def best_match(
     (second-best = BIG ⇒ ratio ≈ 0), like the reference's INT_MAX second.
     """
     masked = jnp.where(cand_mask, dist, BIG)
-    # best + second-best via two min passes (row-wise top_k is sort-based and
-    # markedly slower on TPU)
+    # best + second-best via two min passes (row-wise top_k is sort-based)
     best = jnp.min(masked, axis=1)
     best_idx = jnp.argmin(masked, axis=1)
     cols = jax.lax.broadcasted_iota(jnp.int32, masked.shape, 1)

@@ -6,7 +6,7 @@ comparing blurred intensities into a 32-byte descriptor (reference:
 src/ORBExtractor.cc:465-487 ``getGrayCentroid``, :427-456 ``computeBRIEF``,
 :242-267 template load from config/brief_template.txt).
 
-TPU design differences:
+Design differences:
 - all keypoints are described in one batched program over the pyramid canvas;
 - the rotation is discretized to ``N_ANGLE_BINS`` precomputed integer offset
   tables (a static LUT), so sampling is a pure gather with no per-keypoint
@@ -28,11 +28,11 @@ import numpy as np
 
 N_PAIRS = 256
 N_ANGLE_BINS = 32
-# Patch geometry is the lane-friendly 48×64 window of ops.pallas_patches:
-# centre at (22, 22) covers the rotated template reach (<19) plus the 3-px
-# blur apron; one DMA per keypoint serves orientation, blurring and sampling.
-from .pallas_patches import CENTER as PATCH_CENTER  # noqa: E402
-from .pallas_patches import PATCH_COLS, PATCH_ROWS  # noqa: E402
+# Patch geometry is the 48×64 window of ops.patches: centre at (22, 22)
+# covers the rotated template reach (<19) plus the 3-px blur apron; one
+# window per keypoint serves orientation, blurring and sampling.
+from .patches import CENTER as PATCH_CENTER  # noqa: E402
+from .patches import PATCH_COLS, PATCH_ROWS  # noqa: E402
 
 PATCH_HALF = PATCH_CENTER  # keypoint border requirement (rows above/left)
 TEMPLATE_CLIP = 13       # max |coordinate| of a template point pre-rotation
@@ -164,9 +164,9 @@ def orientations(patches: jnp.ndarray) -> jnp.ndarray:
 def blur_patches(patches: jnp.ndarray, ksize: int = 7, sigma: float = 2.0) -> jnp.ndarray:
     """Separable Gaussian over patch stacks [N, P, P] as shifted weighted sums.
 
-    Blurring whole pyramid levels with XLA convs costs ~32 ms/image on TPU
-    (batch-1 channel-1 convs starve the MXU); blurring only the extracted
-    patches is ~60 MFLOP of pure VPU adds.  Patch borders use edge padding —
+    Only the extracted patches are blurred (~60 MFLOP of elementwise adds),
+    never whole pyramid levels, whose pixels away from keypoints are never
+    sampled.  Patch borders use edge padding —
     only the ±3 px apron differs from a full-image blur and the sampling
     template never reaches it (PATCH_HALF covers reach + apron).
     """
@@ -249,11 +249,11 @@ def describe(
     bit i = I_blur(rot(p1_i)) < I_blur(rot(p2_i)), packed little-endian into
     8 words — the reference's 32-byte descriptor as 8 uint32 lanes.
 
-    MXU formulation (gather-free): bit i for bin b is the sign of
+    Matmul formulation (gather-free): bit i for bin b is the sign of
     patch · (g_{p2} − g_{p1}) (blur folded into the matrix), so ONE
     [N, px] @ [px, bins·256] matmul computes every bin's blurred comparisons
-    and a one-hot einsum selects each keypoint's bin — TPU gathers at 10⁶
-    elements cost ~8 ms/image, this is ~1 ms of matmul and no blur pass.
+    and a one-hot einsum selects each keypoint's bin — no 10⁶-element
+    gather and no blur pass.
     """
     n = patches.shape[0]
     flat = patches.reshape(n, -1).astype(jnp.bfloat16)

@@ -1,20 +1,16 @@
 """Flat pyramid canvas: all pyramid levels stacked into one tall image.
 
-TPU-new design (no reference counterpart): per-keypoint patch operations
+New design (no reference counterpart): per-keypoint patch operations
 (orientation moments, BRIEF sampling, stereo SAD) must gather from the
 keypoint's *own pyramid level*.  Levels have different static shapes, so
 instead of eight separately-shaped gathers we write every level into one
 [ΣHl, W0] canvas at a static row offset.  A keypoint's patch address is then
 ``(v_level + row_offset[octave], u_level)`` — one uniform gather space for
-all octaves, one vmapped dynamic_slice for the whole frame.
+all octaves, one gather for the whole frame.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 from .pyramid import level_shapes
@@ -32,46 +28,10 @@ def canvas_layout(h: int, w: int, n_levels: int, scale_factor: float):
 
 
 def padded_canvas_shape(h: int, w: int, n_levels: int, scale_factor: float):
-    """Canvas dims padded so the patch DMA's aligned [56, 192] superset
-    window never clamps for any legal keypoint: x = u−22 ≤ w−46 needs
-    cols ≥ w+210 for the [56, 256] aligned window; y ≤ total−23 needs
-    rows ≥ total+33."""
+    """Canvas dims padded so the patch window's clamp bounds (56 × 256,
+    ``ops.patches``) never bind for any legal keypoint: x = u−22 ≤ w−46
+    needs cols ≥ w+210; y ≤ total−23 needs rows ≥ total+33."""
     _, total_rows, _ = canvas_layout(h, w, n_levels, scale_factor)
     cols = ((w + 210) + 127) // 128 * 128
     rows = total_rows + 40
     return rows, cols
-
-
-def build_canvas(levels: Sequence[jnp.ndarray], width: int, total_rows: int) -> jnp.ndarray:
-    """Stack per-level images [Hl, Wl] into a [total_rows, width] canvas.
-
-    Implemented as 8 ``dynamic_update_slice`` writes into one zero buffer —
-    a pad+concatenate formulation costs ~30 ms/canvas on TPU (two full copies
-    through many small kernels), the in-place update strategy is one
-    allocation plus straight memcpy-speed writes.  Keypoint borders guarantee
-    patches never read the zero padding.
-    """
-    canvas = jnp.zeros((total_rows, width), levels[0].dtype)
-    off = 0
-    for lv in levels:
-        hl, _ = lv.shape
-        canvas = jax.lax.dynamic_update_slice(canvas, lv, (off, 0))
-        off += hl
-    return canvas
-
-
-def extract_patches(
-    canvas: jnp.ndarray, centers_yx: jnp.ndarray, half: int
-) -> jnp.ndarray:
-    """Gather (2·half+1)² patches around integer centers [N, 2] (y, x).
-
-    One vmapped dynamic_slice — XLA lowers this to a batched gather.  Centers
-    are clamped by dynamic_slice semantics; keypoint borders keep real
-    keypoints away from edges.
-    """
-    size = 2 * half + 1
-
-    def one(c):
-        return jax.lax.dynamic_slice(canvas, (c[0] - half, c[1] - half), (size, size))
-
-    return jax.vmap(one)(centers_yx)

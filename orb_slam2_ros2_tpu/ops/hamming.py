@@ -1,13 +1,13 @@
-"""Hamming distance between ORB descriptors, MXU-shaped.
+"""Hamming distance between ORB descriptors as a matmul.
 
 The reference computes pairwise distances with the classic popcount bit hack
 one descriptor pair at a time (reference: src/ORBMatcher.cc:941-956
-``descDistance``).  On TPU the whole N×M distance matrix is one matmul:
+``descDistance``).  Here the whole N×M distance matrix is one matmul:
 unpack each 256-bit descriptor to a ±1 bit-sign vector, then
 
     dot(a, b) = 256 − 2·hamming(a, b)   ⟹   hamming = (256 − dot) / 2
 
-which runs on the 128×128 systolic array in bf16 (exact: all addends are ±1
+which runs as a bf16 matrix product (exact: all addends are ±1
 and |dot| ≤ 256 < 2^8, far inside bf16's integer-exact range... note the
 *accumulator* is f32 via preferred_element_type, so the sum is exact).
 """

@@ -70,9 +70,8 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
 def resize_bilinear_matmul(img: jnp.ndarray, h_out: int, w_out: int) -> jnp.ndarray:
     """Bilinear resize of [..., H, W] via two weight-matrix matmuls.
 
-    The gather formulation of jax.image.resize costs ~0.2 ms per level on
-    TPU; two tiny MXU matmuls per level are essentially free and batch over
-    leading dims (both stereo images resize in one einsum).
+    Two small matmuls per level replace jax.image.resize's gathers and
+    batch over leading dims (both stereo images resize in one einsum).
     """
     h_in, w_in = img.shape[-2:]
     Wh = jnp.asarray(_resize_weights(h_in, h_out)).astype(img.dtype)
@@ -116,12 +115,12 @@ def build_pyramid(img: jnp.ndarray, n_levels: int = 8, scale_factor: float = 1.2
     """[..., H, W] f32 → tuple of [..., Hl, Wl] levels (leading dims batch —
     a stereo pair's two images resize in the same matmuls).
 
-    TPU formulation: every level resizes DIRECTLY from level 0 — ONE shared
+    Formulation: every level resizes DIRECTLY from level 0 — ONE shared
     column resize ``img @ Ww_all`` (narrow axis H first keeps it cheap), then
     a per-level row matmul on that level's column slice.  The row matmuls
     all depend only on the shared product (no successive chain), and unlike
     the r3 one-shot [ΣH,W]×[W,ΣW] form there are NO off-diagonal
-    level-row × level-col blocks (~85% of that product was discarded MXU
+    level-row × level-col blocks (~85% of that product was discarded
     work: ~11 G vs ~2 G MACs/image at KITTI size).
     INTER_AREA box weights keep every scale anti-aliased; the reference's
     successive INTER_LINEAR chain (ORBExtractor.cc:287) accumulates a similar
@@ -129,12 +128,11 @@ def build_pyramid(img: jnp.ndarray, n_levels: int = 8, scale_factor: float = 1.2
 
     Unlike the reference there is NO per-level Gaussian-blurred copy
     (ORBExtractor.cc:311-318): BRIEF folds its blur into the descriptor
-    sampling matrix (ops.brief._pair_difference_matrix) — whole-level blurs
-    cost ~32 ms/image on TPU for values never read outside keypoint
-    neighbourhoods.
+    sampling matrix (ops.brief._pair_difference_matrix) — a whole-level blur
+    would compute values never read outside keypoint neighbourhoods.
     """
     h, w = img.shape[-2:]
-    # bf16 image plane: halves HBM traffic of every image-space op (FAST's 16
+    # bf16 image plane: halves the memory traffic of every image-space op (FAST's 16
     # rolled copies, canvas, patch gathers).  Intensities ≤255 carry ~0.5 grey
     # levels of rounding — far below FAST thresholds and BRIEF noise floors;
     # stages needing accumulation precision (SAD, moments) upcast locally.

@@ -5,7 +5,7 @@ hamming-matches, then refines disparity with an 11×11 SAD sweep ±5 px and a
 sub-pixel parabola (reference: src/ORBMatcher.cc:18-81 ``searchByStereo``,
 :841-905 ``pixelSADMatch``/``SAD``, :915-932 ``createRowIndexDB``).
 
-TPU design: the row database disappears — one N×N hamming matrix on the MXU
+Design: the row database disappears — one N×N hamming matrix (a matmul)
 with a row/disparity/validity mask, one argmin, then a batched SAD sweep as
 strip gathers from the pyramid canvas.  Gates preserved from the reference:
 
@@ -74,7 +74,7 @@ def stereo_match(
     """Match left→right keypoints, return (right_u [N], depth [N]); −1 = none.
 
     ``patchesL/R`` are the f32[N, 48, 64] keypoint patches the extractor
-    already DMA'd for BRIEF (centred at PATCH_CENTER on each keypoint's own
+    already extracted for BRIEF (centred at PATCH_CENTER on each keypoint's own
     pyramid level) — the SAD windows are static sub-slices of them, so the
     refinement costs no extra image gathers at all.
     """
@@ -99,7 +99,7 @@ def stereo_match(
     best_j = jnp.argmin(masked, axis=1)
     best_d = jnp.take_along_axis(masked, best_j[:, None], axis=1)[:, 0]
 
-    # left↔right mutual-best consistency (TPU addition, not in the reference):
+    # left↔right mutual-best consistency (an addition, not in the reference):
     # repetitive texture along the epipolar line produces aliased matches that
     # the reference's one-way best match lets through; requiring the right
     # keypoint to pick the same left keypoint removes most of them for free
@@ -116,7 +116,7 @@ def stereo_match(
     )
 
     # ---- SAD refinement on each keypoint's own pyramid level -----------------
-    from .pallas_patches import CENTER as PC
+    from .patches import CENTER as PC
 
     uvR_best = featR.uv_raw[best_j]
 

@@ -1,12 +1,13 @@
 """Device-mesh utilities for distributed bundle adjustment.
 
 The reference is a single shared-memory process (SURVEY.md §5.8 — "no
-distributed backend").  Here multi-chip scaling is one axis: landmark blocks
-of the global BA are sharded over a 1-D mesh (solvers.pcg_ba); everything
-else (tracking, local mapping) is latency-critical single-chip work.  On a
-multi-host pod, initialize with ``jax.distributed.initialize()`` before
-calling :func:`ba_mesh` — the mesh then spans all hosts' devices and the
-same psum path rides ICI/DCN.
+distributed backend").  Here multi-device scaling is one axis: landmark
+blocks of the global BA are sharded over a 1-D mesh (solvers.pcg_ba);
+everything else (tracking, local mapping) is latency-critical single-device
+work.  Every card of a host reaches every other at the same rate, so the
+mesh follows the algorithm alone.  Across hosts, call
+:func:`init_distributed` before :func:`ba_mesh` — the mesh then spans all
+hosts' devices and the same psum path crosses the network.
 """
 
 from __future__ import annotations
@@ -25,12 +26,12 @@ def init_distributed(
     process_id: Optional[int] = None,
 ) -> int:
     """Multi-host bring-up: wire this process into a JAX distributed runtime
-    so ``jax.devices()`` spans every host's chips and the BA mesh collectives
-    ride ICI within a slice / DCN across slices (SURVEY.md §5.8).
+    so ``jax.devices()`` spans every host's devices and the BA mesh
+    collectives span hosts (SURVEY.md §5.8).
 
     Arguments default to the standard env vars (``SLAM_COORDINATOR``,
-    ``SLAM_NUM_PROCESSES``, ``SLAM_PROCESS_ID``); on Cloud TPU pods all three
-    may be omitted and JAX autodetects.  No-op (returns 0) when neither
+    ``SLAM_NUM_PROCESSES``, ``SLAM_PROCESS_ID``); give all three, since
+    nothing tells JAX of the cluster otherwise.  No-op (returns 0) when neither
     arguments nor env vars request multi-process mode — the single-host path
     must not pay any initialization cost.  Returns this process's index.
     """

@@ -1,10 +1,10 @@
 """Feature-major ("planar") bundle-adjustment edge terms.
 
-TPU arrays tile their trailing two dims to (8, 128) lanes.  The obvious BA
-edge layout — ``[P, O, 3, 6]`` Jacobian tensors — pads each tiny trailing
-``3×6`` block to ``8×128``, inflating HBM footprint and traffic ~28×; at the
-full map capacity (2.6e5 points × 24 obs) one such tensor "costs" 25 GB and
-global BA cannot even allocate (observed on v5e).  This module instead keeps
+Layout chosen for accelerators that tile an array's trailing two dims (to
+(8, 128) on the first target): the obvious BA edge layout — ``[P, O, 3, 6]``
+Jacobian tensors — then pads each tiny trailing ``3×6`` block, inflating
+device memory and traffic up to ~28×; at the full map capacity (2.6e5
+points × 24 obs) one such tensor would take 25 GB.  This module instead keeps
 every per-edge quantity as a stack of SCALAR planes with the component axis
 LEADING and the (many-edges) axes trailing::
 

@@ -3,7 +3,7 @@
 The reference runs EPnP inside a sequential adaptive RANSAC template
 (reference: src/PnPSolver.cc — control points :139-176, barycentric :185-212,
 M matrix :221-241, null vectors :249-272, ICP :89-131; Ransac.hpp:63-103).
-TPU design: ALL hypotheses are generated and scored in parallel — sample H
+Design: ALL hypotheses are generated and scored in parallel — sample H
 minimal sets, vmap the EPnP closed form (12×12 eigendecomposition batch),
 score every hypothesis against every correspondence on one [H, N] residual
 grid, pick the argmax (SURVEY.md §2 #12-13: batched RANSAC replaces the

@@ -1,7 +1,7 @@
-"""Tiny fixed-size linear algebra, unrolled for TPU.
+"""Tiny fixed-size linear algebra, unrolled.
 
 Generic ``jnp.linalg.solve``/``svd`` on 3×3/6×6 matrices lower to iterative
-LAPACK-style routines that cost *milliseconds* on TPU — catastrophic inside a
+LAPACK-style routines, each a chain of dependent small ops inside a
 40-iteration optimizer loop.  These closed-form/unrolled versions are pure
 elementwise/vector ops (a 6×6 SPD Cholesky is 21 multiply-adds of rows) and
 batch over leading dimensions for free.

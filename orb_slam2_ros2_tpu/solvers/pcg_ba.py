@@ -9,15 +9,14 @@ gradients.
 **Dual-index, scatter-free design.**  The map keeps BOTH edge indexes: the
 forward table ``kf_mp_idx [K, N]`` (camera-major) and the reverse observation
 lists ``mp_obs_* [M, O]`` (point-major).  Every Schur reduction therefore has
-a layout in which it is a plain axis-sum — no TPU scatter, no one-hot:
+a layout in which it is a plain axis-sum — no scatter, no one-hot:
 
     point-space sums (Hpp, b_p, Gᵀx)   → sum over O in the point-major planes
     camera-space sums (Hcc, b_c, G z)  → sum over N in the camera-major planes
 
 with per-edge quantities stored feature-major (``[k, O, M]`` / ``[k, N, K]``
-scalar planes, see solvers.edge_fm) so nothing hits the (8, 128) tile-padding
-cliff that makes ``[M, O, 6, 6]`` tensors 28× their logical size (the naive
-layout literally cannot allocate at full capacity on a 16 GB chip).
+scalar planes, see solvers.edge_fm) so nothing hits the tile-padding cliff
+that can make ``[M, O, 6, 6]`` tensors up to 28× their logical size.
 
 The two index views MUST describe the same edge set or the implied S is
 asymmetric and PCG diverges — extraction enforces backlink + membership
@@ -28,8 +27,7 @@ SURVEY.md §5.8): shard points over the mesh axis on the point-major side and
 cameras on the camera-major side.  Per matvec the only cross-device traffic
 is one all-gather of the marginalized point vector ``z [3, M]`` (≈3 MB) and
 one of the camera result ``y [6, K]`` (≈25 KB); per GN step one all-gather
-each of Hcc/b̃/pt_pos.  Collectives ride ICI; the single-chip path pays zero
-collective cost.
+each of Hcc/b̃/pt_pos.  The single-device path pays zero collective cost.
 
 Replaces Optimizer::globalOptimization (reference src/Optimizer.cc:934-1043,
 g2o LM with 10 iterations over the whole map).
@@ -408,7 +406,7 @@ def solve_global_ba_sharded(
 ):
     """Distributed global BA: point-major arrays sharded over points,
     camera-major arrays over cameras, reductions stitched with all-gathers
-    over ICI (SURVEY.md §5.8)."""
+    across the mesh (SURVEY.md §5.8)."""
     from jax import shard_map
 
     if isinstance(prob, PointBAProblem):

@@ -7,7 +7,7 @@ strong covisibility edges, each with the relative-Sim3 measurement taken
 from the poses at correction time; 20 GN iterations; afterwards map points
 are corrected via S_wc_new ∘ S_cw_old.
 
-TPU design: edges live in padded arrays; residual e = log_sim3(S_meas ∘ S_j ∘
+Design: edges live in padded arrays; residual e = log_sim3(S_meas ∘ S_j ∘
 S_i⁻¹) with exact Jacobians from ``jax.jacfwd`` batched over all edges.  Two
 normal-equation solvers behind one entry point, chosen by the (static) vertex
 count:
@@ -138,7 +138,7 @@ def _gn_step_pcg(
 
     Endpoint accumulation is an XLA scatter-add — O(E) memory (a one-hot
     matmul would be O(E·K), defeating the scalability this path exists for;
-    the op runs once per loop closure, so MXU utilization is not the
+    the op runs once per loop closure, so matmul throughput is not the
     bottleneck here).
     """
     K = prob.kf_valid.shape[0]
@@ -195,8 +195,8 @@ def _gn_step_pcg_sharded(
     global BA uses (pcg_ba.solve_global_ba_sharded; SURVEY §5.8).  Vertex
     state is replicated (7K floats — tiny); only the O(E) Jacobian work and
     its memory scale down per device."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
 
     K = prob.kf_valid.shape[0]
     n = mesh.devices.size
@@ -258,7 +258,7 @@ def _gn_step_pcg_sharded(
 
     dx = shard_map(
         run, mesh=mesh, in_specs=(espec, sim3.Sim3(P(), P(), P())),
-        out_specs=P(), check_rep=False,
+        out_specs=P(), check_vma=False,
     )(prob, S)
     return _finish_step(prob, S, dx)
 

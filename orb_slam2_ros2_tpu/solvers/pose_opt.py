@@ -7,7 +7,7 @@ deactivated but can return), Huber kernels dropped in round 3, and a final
 projection-bounds post-filter (reference: src/Optimizer.cc:33-203; χ²
 thresholds 5.991/7.815, information = 1/σ² per octave).
 
-TPU design: residuals and analytic Jacobians for ALL matches at once; the
+Design: residuals and analytic Jacobians for ALL matches at once; the
 normal equations are a 6×6 system assembled by one batched einsum — the whole
 optimizer is a fixed-trip-count ``lax.fori_loop`` inside jit, no dynamic
 control flow.  Outlier gating = a weight mask recomputed between rounds.
@@ -152,7 +152,7 @@ def optimize_pose(
             pass yields both its acceptance cost AND the next step's normal
             equations; on reject the carried H, b of the incumbent are reused
             with higher damping (pure-latency win — the per-iteration small
-            ops dominate this solver's runtime on TPU).
+            ops dominate this solver's runtime).
             """
             T, lam, cost, H, b = carry
             Hd = H + lam * (jnp.eye(6, dtype=H.dtype) + jnp.diag(jnp.diag(H)))

@@ -3,24 +3,24 @@
 The reference's local/global BA builds g2o graphs: SE3 vertices, marginalized
 landmark vertices, Huber-robust mono/stereo reprojection edges, LM iterations
 with χ² gating (reference: src/Optimizer.cc:225-442 OptimizeLocalMap,
-:934-1043 globalOptimization).  This module is the TPU-native equivalent:
+:934-1043 globalOptimization).  This module is the array-native equivalent:
 
 **Data layout** — no sparse graph structure at all.  The edge set is the
 dense grid ``[C cameras × N feature slots]`` with a validity mask: camera c's
 feature slot n observes point-slot ``pt_slot[c, n]``.  Residuals, Jacobians
 and weights are plain ``[C, N, ...]`` arrays.
 
-**Reduced camera system on the MXU** — per-edge camera-point coupling blocks
+**Reduced camera system as matmuls** — per-edge camera-point coupling blocks
 ``G = Jcᵀ W Jp [C, N, 6, 3]`` are segment-summed into the block matrix
 ``B [F·6, P·3]``; the Schur complement is two batched matmuls:
 
-    S = Hcc − (B · blockdiag(Hpp+λ)⁻¹) · Bᵀ        (MXU, dense [F·6, F·6])
+    S = Hcc − (B · blockdiag(Hpp+λ)⁻¹) · Bᵀ        (dense [F·6, F·6])
     b̃ = b_c − (B · blockdiag(Hpp+λ)⁻¹) · b_p
 
 followed by one dense Cholesky solve and a matmul back-substitution for the
 landmarks.  At F ≤ 32 free cameras (local BA) S is 192×192; the same engine
-runs whole-map global BA (F = K) because S stays dense-Cholesky-friendly on
-TPU up to thousands of cameras.
+runs whole-map global BA (F = K) because S stays dense-Cholesky-friendly
+up to thousands of cameras.
 
 **Robustness** — Huber IRLS weights + χ² re-gating between iteration phases,
 matching the reference's 5-iters → gate → 10-iters structure
@@ -104,10 +104,9 @@ def _solve_iteration(cam, prob, Tcw, pts, weights, lam):
     Hcc = jnp.einsum("cnki,cnk,cnkj->cij", Jc, wm, Jc)   # [C, 6, 6]
     b_c = jnp.einsum("cnki,cnk,cnk->ci", Jc, wm, r)      # [C, 6]
 
-    # --- per-point segment reductions as one-hot MXU matmuls ---------------
-    # TPU scatter-add lowers to a sort-based routine costing hundreds of ms
-    # at this size; onehotᵀ @ [G | Hpp | b_p] is a few ms of matmul traffic.
-    # Everything stays f32: the normal-equation blocks span enough dynamic
+    # --- per-point segment reductions as one-hot matmuls -------------------
+    # onehotᵀ @ [G | Hpp | b_p] replaces a scatter-add (which the first
+    # target lowered to a sort).  Everything stays f32: the normal-equation blocks span enough dynamic
     # range that bf16 operands make Wp = (Hpp+λ)⁻¹ garbage and the solver
     # diverges (verified) — the one-hot matmul is bandwidth-bound anyway.
     slot = jnp.where(prob.edge_valid, prob.pt_slot, P)
@@ -138,7 +137,7 @@ def _solve_iteration(cam, prob, Tcw, pts, weights, lam):
     Wp = jnp.where(prob.pt_valid[:, None, None], Wp, 0.0)
 
     BW = jnp.einsum("cpij,pjk->cpik", B, Wp)             # [C, P, 6, 3]
-    # S[c1, c2] = Hcc δ − Σ_p BW[c1, p] @ B[c2, p]^T  → via MXU matmul
+    # S[c1, c2] = Hcc δ − Σ_p BW[c1, p] @ B[c2, p]^T  → via one matmul
     BWf = jnp.transpose(BW, (0, 2, 1, 3)).reshape(C * 6, P * 3)
     Bf = jnp.transpose(B, (0, 2, 1, 3)).reshape(C * 6, P * 3)
     S = -BWf @ Bf.T                                      # [C6, C6]
@@ -179,7 +178,7 @@ def _chi2(cam, prob, Tcw, pts):
 
 class _PointFM(NamedTuple):
     """Obs-slot-major planes of a PointBAProblem: every array's minor dim is
-    the (large) point axis, so nothing suffers (8, 128) tile padding."""
+    the (large) point axis, so nothing suffers trailing-dim tile padding."""
 
     ci: jnp.ndarray        # i32[O, P] clipped camera index
     uv: jnp.ndarray        # f32[2, O, P]
@@ -218,12 +217,11 @@ def _solve_iteration_points(cam, prob, fm, Tcw, pts, weights, lam):
     """One damped-GN dense-Schur step over the per-point layout in
     feature-major planes ([O, P]-shaped scalar arrays).
 
-    The naive [P, O, 6, 3] block tensors tile-pad their trailing dims to
-    (8, 128) on TPU — 28× the logical bytes; at the production window that
-    padding alone was most of round 1's 259 ms/keyframe.  Here every per-edge
+    The naive [P, O, 6, 3] block tensors can tile-pad their trailing dims
+    to many times the logical bytes (solvers.edge_fm).  Here every per-edge
     quantity is a [k, O, P] stack of planes (zero padding), per-point
     reductions are sums over the O axis, and camera-space reductions ride one
-    [≤27+18, O·P] × [O·P, C+1] one-hot MXU matmul.  The Schur product stays
+    [≤27+18, O·P] × [O·P, C+1] one-hot matmul.  The Schur product stays
     one [C6, 3P] matmul:  S = blkdiag(Hcc+λ) − (B Wp) Bᵀ.
 
     ``weights`` is [O, P] (validity ⊗ Huber ⊗ information).

@@ -5,7 +5,7 @@ sequential RANSAC template, src/Sim3Solver.cc:24-259) and
 ``Optimizer::OptimizeSim3`` (g2o Sim3 vertex + fixed point pairs +
 forward/backward projection edges, src/Optimizer.cc:464-619).
 
-TPU design: all RANSAC hypotheses at once (vmapped Horn with scale), one
+Design: all RANSAC hypotheses at once (vmapped Horn with scale), one
 dense bidirectional-reprojection scoring pass; the refinement is batched
 Gauss-Newton on the sim(3) tangent with Jacobians from ``jax.jacfwd``
 (exact, no hand-derived 7-dof chain rule).  Stereo maps fix the scale

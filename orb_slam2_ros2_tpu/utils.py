@@ -1,9 +1,30 @@
-"""Small shared jit-safe helpers."""
+"""Small shared helpers: the compile-cache setup and jit-safe array ops."""
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def setup_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    The full pipeline takes minutes to compile cold.  Where
+    ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and no other
+    directory is set here.  Otherwise the cache lives in ``.jax_cache`` at
+    the root of the checkout: a fixed path, since the path is part of what
+    makes a later run find its entries."""
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not cache:
+        cache = os.path.join(_REPO_ROOT, ".jax_cache")
+        os.makedirs(cache, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", cache)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return cache
 
 
 def topk_bounded(x: jnp.ndarray, k: int):

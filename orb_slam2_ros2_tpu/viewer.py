@@ -4,12 +4,12 @@ The reference runs a GL loop at ~140 Hz drawing the current pose frustum,
 keyframe frustums, the covisibility/spanning-tree/loop graph, all map points
 plus the tracked subset, and an OpenCV HUD with KF/MP/match counters
 (reference src/Viewer.cc:27-156, System.cc:115-120).  A GL window is the
-wrong tool next to a TPU host process; this viewer keeps the same content
+wrong tool next to an accelerator host process; this viewer keeps the same content
 and cadence contract with matplotlib:
 
 - interactive mode (a display + a GUI backend available): a window redrawn
   every ``every`` frames from the live map snapshot;
-- headless mode (the normal case for a TPU host): the same frame rendered
+- headless mode (the normal case on a compute host): the same frame rendered
   to ``out_dir/viewer_%06d.png`` — an inspectable film strip of the run.
 
 Attach with ``viewer = LiveViewer(slam)`` and call ``viewer.update(pose)``

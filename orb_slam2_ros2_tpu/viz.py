@@ -1,7 +1,7 @@
 """Offline visualization: trajectory / map dumps.
 
 The reference renders live with a Pangolin GL thread + OpenCV HUD
-(reference src/Viewer.cc:27-156).  A GL viewer is a non-goal for a TPU
+(reference src/Viewer.cc:27-156).  A GL viewer is a non-goal for an accelerator
 framework (SURVEY.md #19); instead this module renders the trajectory and
 map-point cloud to PNG with matplotlib for offline inspection, and exports
 the same counters the reference HUD shows (KFs, MPs, tracked matches).

@@ -1,17 +1,17 @@
 #!/usr/bin/env python
 """Sub-stage cost model of extraction-after-FAST (the C−B gap in
-profile_scan): selection, canvas assembly, patch DMA, moments, blur, BRIEF."""
+profile_scan): selection, canvas assembly, patch gather, moments, blur, BRIEF."""
 import os, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from functools import partial
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.config import SLAMConfig
 from orb_slam2_ros2_tpu.features import extractor as ex
@@ -19,7 +19,7 @@ from orb_slam2_ros2_tpu.geometry.camera import CameraParams
 from orb_slam2_ros2_tpu.io.synthetic import SyntheticStereoDataset
 from orb_slam2_ros2_tpu.ops import brief, fast, stereo
 from orb_slam2_ros2_tpu.ops.canvas import canvas_layout, padded_canvas_shape
-from orb_slam2_ros2_tpu.ops.pallas_patches import extract_patches_48x64
+from orb_slam2_ros2_tpu.ops.patches import extract_patches
 from orb_slam2_ros2_tpu.ops.pyramid import build_pyramid
 
 T0 = time.time()
@@ -103,8 +103,8 @@ def main():
         centers = centers + (jnp.arange(B, dtype=jnp.int32)[:, None, None]
                              * jnp.asarray([rows_p, 0], jnp.int32)[None, None, :])
         N = uv_raw.shape[1]
-        return extract_patches_48x64(canvas, centers.reshape(B * N, 2))
-    scan_time(upto_patches, (stack_l, stack_r), "S3 +patchDMA")
+        return extract_patches(canvas, centers.reshape(B * N, 2))
+    scan_time(upto_patches, (stack_l, stack_r), "S3 +patches")
 
     def upto_orient(x):
         p = upto_patches(x)

@@ -17,16 +17,16 @@ pass; deltas between variants are dispatch-free per-stage costs:
   frame+snap= + per-frame local_map_snapshot_frame (the bench body)
 """
 import os, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from functools import partial
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.config import SLAMConfig
 from orb_slam2_ros2_tpu.geometry.camera import CameraParams

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""ORBvoc-scale (10⁶-word) vocabulary on the LIVE keyframe path, on TPU
+"""ORBvoc-scale (10⁶-word) vocabulary on the LIVE keyframe path, on device
 (r4 VERDICT next#6): run a full-SLAM loop-closure sequence with a k=10 L=6
 DBoW-format vocabulary and measure what the 10⁶-word tree costs per keyframe
 — the fused add+detect program (BoW transform + sparse row insert + loop
@@ -17,15 +17,15 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.config import SLAMConfig
 from orb_slam2_ros2_tpu.io.synthetic import SyntheticStereoDataset

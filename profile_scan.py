@@ -1,20 +1,20 @@
 #!/usr/bin/env python
-"""Scan-amortized per-stage cost model of the frame loop on real TPU.
+"""Scan-amortized per-stage cost model of the frame loop on the device.
 
 Each variant scans over T frames doing progressively more of the pipeline;
 deltas between variants give dispatch-overhead-free stage costs.
 """
 import os, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from functools import partial
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.config import SLAMConfig
 from orb_slam2_ros2_tpu.features import extractor as ex

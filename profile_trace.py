@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """Capture a jax.profiler trace of the scanned frontend and dump top ops."""
 import os, sys, glob, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import jax, jax.numpy as jnp, numpy as np
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.config import SLAMConfig
 from orb_slam2_ros2_tpu.features import extractor as ex

@@ -1,12 +1,13 @@
 """Keep the driver entry points (__graft_entry__.py) compiling and running."""
 
+import os
 import sys
 
 import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def test_entry_compiles_and_runs():

@@ -1,6 +1,6 @@
 """Regression: a single catastrophic outlier must not capture the optimizer.
 
-Found on TPU frame-level testing: one wrong match whose point lands at the
+Found in frame-level testing: one wrong match whose point lands at the
 z-clamp produces χ² ~1e17; Huber's linear tail still gives it more influence
 than hundreds of good observations, the pose walks off and the χ² gates then
 reject everything (0 inliers).  The truncated loss keeps such edges at zero

@@ -29,9 +29,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import jax
 import numpy as np
 
-os.makedirs("/root/repo/.jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orb_slam2_ros2_tpu.utils import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 from orb_slam2_ros2_tpu.config import (
     BAConfig, BoWConfig, CameraConfig, MapConfig, ORBConfig, SLAMConfig,
@@ -185,7 +185,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=400)
     ap.add_argument("--lap", type=int, default=150)
-    ap.add_argument("--out", default="/root/repo/VALIDATION.md")
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "VALIDATION.md"))
     args = ap.parse_args()
     cfg = make_cfg()
     results = {}
